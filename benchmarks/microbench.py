@@ -73,6 +73,7 @@ def main():
     import jax.numpy as jnp
 
     import proxsdp_tpu  # noqa: F401  (x64 + compile cache config)
+    from proxsdp_tpu.ops.precision import full_f32
 
     n, k = args.side, args.k
     rng = np.random.RandomState(0)
@@ -109,11 +110,12 @@ def main():
             ),
             Bd, Vd, reps=args.reps,
         )
+        # matmuls at the solver's precision policy (ops/precision.py)
         r["matmul(n,n)@(n,k)"] = timeit(
-            jax.jit(lambda X, V: X @ V), Ad, Vd, reps=args.reps
+            jax.jit(full_f32(lambda X, V: X @ V)), Ad, Vd, reps=args.reps
         )
         r["rank_k(n,k)@(k,n)"] = timeit(
-            jax.jit(lambda V: V @ V.T), Vd, reps=args.reps
+            jax.jit(full_f32(lambda V: V @ V.T)), Vd, reps=args.reps
         )
         r["qr(n,k)"] = timeit(
             jax.jit(lambda V: jnp.linalg.qr(V)[0]), Vd, reps=max(args.reps // 5, 5)
@@ -127,12 +129,12 @@ def main():
         opt = Options(dtype="float64" if dt == jnp.float64 else "float32",
                       subspace_rank=k)
         vtri = square_to_tri(Ad, n)
-        proj = jax.jit(
+        proj = jax.jit(full_f32(
             lambda v, w: psd_projection_block(
                 v, n, jnp.asarray(k, jnp.int32), w, opt=opt,
                 allow_lanczos=False,
             ).block
-        )
+        ))
         r["subspace_proj"] = timeit(proj, vtri, Vd, reps=args.reps)
 
         for name, v in r.items():

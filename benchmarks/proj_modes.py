@@ -2,8 +2,7 @@
 
 Answers the standing verdict ask: "a recorded subspace-vs-eigh ms/iter at
 side >= 800" — i.e. where the low-rank thesis (reference
-src/eigsolver.jl, arXiv:1810.05231) must beat the dense eigh and the
-MXU advantage is structural.
+src/eigsolver.jl, arXiv:1810.05231) must beat the dense eigh.
 
 For one SDPLIB instance, runs a fixed number of f32 AND f64 iterations
 under each projection engine through the REAL chunk runner (so the
@@ -121,6 +120,7 @@ def main():
     out = os.path.join(
         os.path.dirname(__file__), "results", f"proj_modes_{inst}.csv"
     )
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     f = open(out, "w", newline="")
     w = csv.DictWriter(f, fieldnames=[
         "instance", "side", "mode", "ms_per_iter", "iters", "backend",

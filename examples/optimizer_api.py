@@ -1,6 +1,6 @@
 """Native modeling-API example (reference: examples/jump.jl).
 
-The reference models through JuMP; the TPU-native equivalent is the
+The reference models through JuMP; the equivalent here is the
 ``proxsdp_tpu.Optimizer`` incremental builder.  Same problem: a 2x2 PSD
 variable with bounds and one coupling inequality, maximized.
 """

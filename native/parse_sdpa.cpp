@@ -1,6 +1,6 @@
 // Fast SDPA-sparse (.dat-s) parser.
 //
-// TPU-native equivalent of the reference's data loader
+// Equivalent of the reference's data loader
 // (reference: test/base_sdplib.jl:1-45, which uses DelimitedFiles.readdlm —
 // O(file) allocations in Julia).  This parser is a single-pass scanner with
 // no per-token allocation; exposed to Python through ctypes (utils/native.py)

@@ -1,8 +1,8 @@
-"""proxsdp_tpu — a TPU-native conic SDP solver.
+"""proxsdp_tpu — a JAX conic SDP solver.
 
 Brand-new JAX/XLA implementation with the capabilities of ProxSDP.jl
 (primal-dual hybrid gradient with approximate low-rank PSD projection;
-reference mounted at /root/reference, arXiv:1810.05231).
+arXiv:1810.05231).
 
 The compute path is jit-compiled XLA with static shapes throughout; the
 PSD projection uses a batched static-shape Lanczos (ops/lanczos.py); scale
@@ -24,20 +24,19 @@ if not os.environ.get("PROXSDP_TPU_NO_X64"):
     _jax.config.update("jax_enable_x64", True)
 
 # Persistent XLA compilation cache: solver programs are recompiled per
-# problem geometry; caching them on disk makes repeat runs (benchmarks,
-# CLI invocations) start in milliseconds instead of minutes on backends
-# with slow compile RPCs. Opt out with PROXSDP_TPU_NO_COMPILE_CACHE=1.
-if not os.environ.get("PROXSDP_TPU_NO_COMPILE_CACHE"):
-    _cache_dir = os.environ.get(
-        "PROXSDP_TPU_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "proxsdp_tpu", "xla"),
-    )
-    try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+# problem geometry, so repeat runs reuse them from disk.  JAX reads
+# JAX_COMPILATION_CACHE_DIR itself; only when it is unset does the package
+# point the cache at a fixed directory inside the checkout (a fixed path:
+# the path is part of the cache key).  Opt out with
+# PROXSDP_TPU_NO_COMPILE_CACHE=1.
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+if not (
+    os.environ.get("PROXSDP_TPU_NO_COMPILE_CACHE")
+    or os.environ.get("JAX_COMPILATION_CACHE_DIR")
+):
+    _jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)
 
 from .options import Options, make_options  # noqa: E402
 from .problem import ConeLayout, ConicProblem, preprocess  # noqa: E402

@@ -34,7 +34,7 @@ class Equilibration(NamedTuple):
 
 
 def block_equilibrate_host(setup, opts):
-    """Cone-safe Ruiz equilibration (TPU-native extension, no reference
+    """Cone-safe Ruiz equilibration (an extension, no reference
     counterpart; ROADMAP §3).
 
     Classic Ruiz alternates row/column inf-norm scalings, but an

@@ -55,6 +55,40 @@ def random_graph_weights(seed: int, n: int, density: float = 0.5) -> np.ndarray:
     return Wu + Wu.T
 
 
+def maxcut_certificate(W, X, y) -> tuple[float, float, float]:
+    """Bounds on the max-cut SDP optimum from a solution, independent of
+    the solver's own gap (host NumPy, f64).
+
+    Lower bound L: project X onto the PSD cone, rescale it to unit
+    diagonal (X̂ = D^-1/2 X+ D^-1/2, a zero diagonal entry becomes 1),
+    and take the objective 1/4 <W, X̂> of that feasible point.
+    Upper bound U: any y gives the dual-feasible y + t 1 with
+    t = max(0, lambda_max(W/4 - Diag(y))), so U(y) = sum(y) + n t; the
+    smaller of U(y) and U(-y) is used, so the dual sign convention cannot
+    fool the check.
+
+    Returns (L, U, (U - L) / |L|).
+    """
+    W = np.asarray(W, np.float64)
+    X = np.asarray(X, np.float64)
+    y = np.asarray(y, np.float64).ravel()
+    n = W.shape[0]
+    w, V = np.linalg.eigh(0.5 * (X + X.T))
+    Xp = (V * np.maximum(w, 0.0)) @ V.T
+    d = np.diag(Xp)
+    s = np.where(d > 0.0, 1.0 / np.sqrt(np.where(d > 0.0, d, 1.0)), 0.0)
+    Xh = s[:, None] * Xp * s[None, :]
+    np.fill_diagonal(Xh, 1.0)
+    lower = 0.25 * float(np.sum(W * Xh))
+
+    def upper_of(yv):
+        lam = np.linalg.eigvalsh(0.25 * W - np.diag(yv))[-1]
+        return float(np.sum(yv) + n * max(0.0, lam))
+
+    upper = min(upper_of(y), upper_of(-y))
+    return lower, upper, (upper - lower) / max(abs(lower), 1e-300)
+
+
 def solve_maxcut(W, options: Options | None = None, **kwargs):
     """Solve one max-cut relaxation; returns (X, result)."""
     from ..solver import solve

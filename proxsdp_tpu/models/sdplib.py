@@ -106,7 +106,7 @@ def sdplib_problem(
 ):
     """Build the ConicProblem for a .dat-s instance; returns (problem, X).
 
-    split_blocks=True (default; TPU-first deviation from the reference):
+    split_blocks=True (default; a deviation from the reference):
     each SDPA block becomes its own PSD block, and diagonal (negative-
     size) blocks become nonnegative scalar variables (one inequality row
     each) instead of being embedded in one huge dense PSD block.  The

@@ -1,1 +1,1 @@
-from . import cones, lanczos, linop, tri  # noqa: F401
+from . import cones, lanczos, linop, precision, tri  # noqa: F401

@@ -1,6 +1,6 @@
 """Static-shape Lanczos eigensolver for the low-rank PSD projection.
 
-TPU-first redesign of the reference's reverse-communication ARPACK /
+Static-shape redesign of the reference's reverse-communication ARPACK /
 KrylovKit engines (src/eigsolver.jl): instead of a dynamic-size, early-exit
 Krylov loop, we run a FIXED number of Lanczos steps (ncv) with full
 reorthogonalization under ``lax.scan`` and diagonalize the small (ncv, ncv)
@@ -11,7 +11,7 @@ eigh when the check fails — mirroring the reference's
 Lanczos-then-full-eig fallback (src/prox_operators.jl:55-57).
 
 Why full reorthogonalization: it turns the orthogonality maintenance into
-two (ncv, n) x (n,) matmuls per step — MXU work — and makes the iteration
+two (ncv, n) x (n,) matmuls per step and makes the iteration
 deterministic and robust without ARPACK's implicit restarts.
 
 Warm start: the caller passes the previous iteration's dominant Ritz vector
@@ -27,6 +27,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from .precision import full_f32
+
 
 class LanczosResult(NamedTuple):
     vals: jax.Array  # (ncv,) Ritz values, sorted DESCENDING
@@ -36,6 +38,7 @@ class LanczosResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("ncv",))
+@full_f32
 def lanczos_topk(X, v0, *, ncv: int, tol: float = 1e-12) -> LanczosResult:
     """Top Ritz pairs of symmetric X via ncv Lanczos steps.
 
@@ -43,17 +46,11 @@ def lanczos_topk(X, v0, *, ncv: int, tol: float = 1e-12) -> LanczosResult:
     Returns all ncv Ritz pairs sorted by value descending, plus standard
     residual bounds res_i = |beta_ncv * S[ncv-1, i]| (so the caller can
     decide which pairs are trustworthy).
+
+    Traced under full-f32 matmul precision (ops/precision.py): Lanczos
+    orthogonality and the Ritz residual bounds need true-f32 products or
+    the caller's acceptance check rejects every run.
     """
-    with jax.default_matmul_precision("float32"):
-        return _lanczos_topk_impl(X, v0, ncv=ncv, tol=tol)
-
-
-def _lanczos_topk_impl(X, v0, *, ncv: int, tol: float) -> LanczosResult:
-    # NOTE on precision: on TPU the DEFAULT f32 matmul is a single bfloat16
-    # pass; Lanczos orthogonality and the Ritz residual bounds need true-f32
-    # products or the caller's acceptance check rejects every run.  The
-    # jit wrapper above pins 'float32' (= HIGHEST); f64 inputs are
-    # unaffected (f64 dots are exact regardless).
     n = X.shape[0]
     dtype = X.dtype
     eps = jnp.asarray(1e-30, dtype)

@@ -1,9 +1,10 @@
 """Triangle(svec) <-> square matrix maps as trace-time gathers.
 
 The reference rebuilds dense symmetric matrices from the packed vector with
-scalar loops every iteration (src/prox_operators.jl:1-31).  On TPU both
+scalar loops every iteration (src/prox_operators.jl:1-31).  Here both
 directions become a single gather with a static index map and a static scale
-vector, fused by XLA into adjacent ops — O(n^2) HBM traffic, no scalar code.
+vector, fused by XLA into adjacent ops — O(n^2) memory traffic, no scalar
+code.
 
 Scaling convention (identical to reference): the packed vector stores
 off-diagonal entries multiplied by sqrt(2) ("scaled triangle"), so

@@ -1,7 +1,7 @@
 """Batched-instance solver: many conic problems of one geometry at once.
 
 The reference is strictly serial (SURVEY.md §2.3); this module is the
-TPU-native scale-out it never had.  The single-instance PDHG iteration
+scale-out it never had.  The single-instance PDHG iteration
 (solver.iteration — already a pure function of static shape) is ``vmap``-ed
 over a leading instance axis and driven by one ``lax.while_loop`` whose
 predicate is "any instance still running"; finished instances freeze
@@ -9,9 +9,9 @@ predicate is "any instance still running"; finished instances freeze
 
 Sharding: the batch axis is laid out over a ``jax.sharding.Mesh`` data axis
 with NamedSharding — instances never communicate, so the only collective
-XLA inserts is the all-reduce behind ``jnp.any(active)`` once per chunk,
-riding ICI.  1024 max-cut instances on a pod slice = (1024 / n_devices)
-instances per chip, all MXU-batched eigh/matmuls.
+XLA inserts is the all-reduce behind ``jnp.any(active)`` in the loop
+predicate (NVLink/NCCL between GPUs).  1024 max-cut instances on n
+devices = 1024 / n instances per device, all batched eigh/matmuls.
 
 Per-instance constraint matrices (round 2): instances may carry DIFFERENT
 A/G — the operator is then batched (stacked dense, or shared-sparsity
@@ -23,8 +23,8 @@ operator stays unbatched and is broadcast by vmap — no extra HBM.
 Limitations vs single-instance solve (documented):
 * under vmap, ``lax.cond`` becomes ``select`` (both branches execute), so
   the Lanczos-vs-eigh gating would run both: batch mode forces the dense
-  eigh projection path, which on MXU is the right call for the small-to-
-  medium blocks batching targets anyway;
+  eigh projection path (one batched eigh for the small-to-medium blocks
+  batching targets);
 * wall-clock time limit is per-chunk granular.
 """
 
@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..ops.precision import full_f32
 from ..options import Options
 from ..problem import ConicProblem, SetupProblem, preprocess
 from ..result import STATUS_STRINGS, Result
@@ -174,7 +175,8 @@ def _cached_batch_runner_normalized(layout, opts: Options, m_kind: str):
             axis=-1,
         )
 
-    return jax.jit(run_chunk, donate_argnums=(0,)), jax.jit(fetch)
+    # same precision policy as the single-instance chunk program
+    return jax.jit(full_f32(run_chunk), donate_argnums=(0,)), jax.jit(fetch)
 
 
 def _cached_batch_runner(layout, opts: Options, m_kind: str = "shared"):
@@ -222,7 +224,7 @@ def _batch_operands(setups, dt, force_linop=None):
     Returns (Operands, m_kind).  m_kind selects the vmap in_axes for M:
     "shared" (all instances have identical A/G — broadcast one operator),
     "ell_batched" (same sparsity pattern, per-instance values), or
-    "dense_batched" (stacked dense (B, p+m, n) — MXU batched matmul).
+    "dense_batched" (stacked dense (B, p+m, n) — batched matmul).
     """
     from ..ops.linop import DenseOp, EllOp, build_linop
 
@@ -297,7 +299,7 @@ def solve_batch(
     mesh data axis. Returns one Result per instance.
 
     With the default ``dtype="float64", hybrid_precision=True`` the sweep
-    races in f32 (MXU-rate) until every instance has either converged to
+    races in f32 until every instance has either converged to
     ``hybrid_switch_factor * tol``, terminated, or hit its f32 noise floor
     (no 1.2x best-metric improvement over 3 consecutive chunks), then the
     whole batch is cast to f64 and finished by the f64 program — the
@@ -327,9 +329,10 @@ def solve_batch(
 
     # ---- batch subspace mode ("projection"): replace the vmapped eigh
     # with the accept-always subspace step + host-side basis reseeds
-    # between chunks.  The vmapped eigh is both the per-iteration cost
-    # and the B>32 backend-compile blowup (BASELINE.md); "auto" enables
-    # subspace for large sweeps with a subspace-eligible block.
+    # between chunks, so the per-iteration cost is matmuls instead of a
+    # vmapped eigh; "auto" enables subspace for large sweeps with a
+    # subspace-eligible block.  Its crossover is not yet measured on the
+    # H100.
     from ..solver import _sub_bucket
 
     sub_k = 0

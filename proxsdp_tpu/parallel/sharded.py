@@ -1,14 +1,14 @@
 """Tensor-parallel solve: shard one huge PSD block across devices.
 
 The reference is single-process; for a single large block (side n in the
-thousands) the TPU-native scale-out is to lay the dense n x n projection
-work over a mesh axis and let GSPMD insert the collectives (SURVEY.md §2.3
-"TP" row).  We do this with ONE sharding constraint inside the PSD
-projection (ops/cones.py consults `current_tp_mesh()`): the (n, n) matrix
-formed from the packed triangle is constrained to PartitionSpec(tp, None),
-which makes XLA shard the Lanczos matvecs / eigh workspace / rank-k
-reconstruction by rows; dot products inside Lanczos become psum
-collectives over ICI.
+thousands) the scale-out is to lay the dense n x n projection work over a
+mesh axis and let GSPMD insert the collectives (SURVEY.md §2.3 "TP" row).
+We do this with ONE sharding constraint inside the PSD projection
+(ops/cones.py consults `current_tp_mesh()`): the (n, n) matrix formed from
+the packed triangle is constrained to PartitionSpec(tp, None), which makes
+XLA shard the Lanczos matvecs / eigh workspace / rank-k reconstruction by
+rows; dot products inside Lanczos become psum collectives (NCCL over
+NVLink between GPUs).
 
 Usage::
 

@@ -43,9 +43,9 @@ class ConeLayout:
     soc_lens: tuple  # length per SOC block (s + v)
     # square-form device layout: PSD blocks stored as FULL side*side
     # matrices (row-major) instead of packed scaled triangles.  The packed
-    # triangle is the reference's CPU-era layout; on TPU the tri<->square
-    # index maps lower to gathers that were measured at 623 us/iteration
-    # on mcp250-1 — over half the whole PDHG step.  The square layout is
+    # triangle is the reference's layout; on device the tri<->square
+    # index maps lower to gathers over the whole PSD segment every
+    # iteration.  The square layout is
     # an exact isometric change of coordinates (off-diagonal pair (X_ij,
     # X_ji) <-> sqrt(2)*X_ij), applied to A/G/c once on the host
     # (to_square_form), so the device loop never touches an index map.
@@ -331,7 +331,7 @@ def preprocess(
 
 
 # ---------------------------------------------------------------------------
-# Square-form device layout (TPU-native; see ConeLayout.square_form)
+# Square-form device layout (see ConeLayout.square_form)
 # ---------------------------------------------------------------------------
 
 import functools as _functools

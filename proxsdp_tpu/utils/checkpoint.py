@@ -4,7 +4,7 @@ The reference has NO checkpointing (SURVEY.md §5: a dead ``WarmStart``
 struct, structs.jl:94-98, and a roadmap note README.md:145-148).  Here the
 entire PDHG state is a flat pytree of arrays, so a checkpoint is one
 ``np.savez`` — this closes that gap and makes multi-hour solves (and
-preemptible-TPU runs) restartable.
+preemptible runs) restartable.
 
 Write is atomic (tmp file + rename): a preemption mid-save never corrupts
 the previous checkpoint.

@@ -18,17 +18,24 @@ _lib = None
 
 
 def _build():
-    """Compile native/parse_sdpa.cpp in place (fresh checkouts ship no
-    build artifacts).  Raises on failure; callers fall back to Python."""
+    """Compile native/parse_sdpa.cpp next to this module (fresh checkouts
+    ship no build artifacts).  The library is written under a temporary
+    name and renamed into place, so a killed build never leaves a broken
+    ``_native.so``.  Raises on failure; callers fall back to Python."""
     import subprocess
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
     src = os.path.join(root, "native", "parse_sdpa.cpp")
-    subprocess.run(
-        ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-         "-o", _LIB_PATH, src],
-        check=True, capture_output=True, timeout=120,
-    )
+    tmp = f"{_LIB_PATH}.tmp{os.getpid()}"
+    try:
+        subprocess.run(
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp, src],
+            check=True, capture_output=True, timeout=120,
+        )
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():

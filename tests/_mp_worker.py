@@ -7,7 +7,8 @@ Each process owns 4 virtual CPU devices; together they form one global
 every process (deterministic seeds), assembles GLOBAL arrays from
 process-local shards, runs the jitted batched PDHG chunk runner over the
 global dp mesh (cross-process collectives ride the distributed runtime —
-the stand-in for ICI/DCN on real multi-host TPU), and checks convergence.
+the stand-in for the interconnect of a real multi-host mesh), and checks
+convergence.
 
 SURVEY.md §4: "multi-host tests runnable on CPU via jax.distributed +
 XLA_FLAGS=--xla_force_host_platform_device_count".

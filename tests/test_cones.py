@@ -83,7 +83,7 @@ class TestPSDFull:
 
 
 class TestSubspace:
-    """Persistent-subspace Rayleigh-Ritz projection (TPU-native path)."""
+    """Persistent-subspace Rayleigh-Ritz projection (no reference counterpart)."""
 
     def _project(self, S, side, k, warm):
         opts = Options(subspace_rank=k)

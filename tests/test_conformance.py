@@ -3,7 +3,7 @@
 The reference validates itself against MOI.Test.runtests: hundreds of
 bridged LP/SOC/PSD problems at atol 1e-4 / rtol 1e-3
 (reference test/moitest.jl:34-91).  This file is the equivalent battery for
-the TPU solver: every problem has a known answer, and each exercises one
+this solver: every problem has a known answer, and each exercises one
 geometry/orientation/bridge the MOI suite covers — LPs in all orientations,
 intervals, SOC, rotated SOC (bridged), PSD (incl. shared variables via
 duplication + equalities, the MOI bridge strategy), infeasibility /

@@ -3,9 +3,8 @@
 The reference has no process-level fault tolerance (SURVEY.md §5); its
 runbench.jl simply loses the instance when the solver dies.  Our parity
 harness (benchmarks/parity.py --isolate) runs each instance in its own
-subprocess, auto-resumes from the last checkpoint after a crash (TPU
-worker faults poison the whole process — observed on truss5, round 4),
-and fails the sweep — instead of silently skipping — when an instance
+subprocess, auto-resumes from the last checkpoint after a crash (a
+device runtime fault can poison the whole process), and fails the sweep — instead of silently skipping — when an instance
 records no row.
 """
 

@@ -142,19 +142,20 @@ class TestSDPLIB:
 
 
 class TestPerturbedSDPLIBInfeasible:
-    """Certificate path at realistic size (VERDICT r1 weak #7): mcp124-1
-    with an appended diag-entry = -1 equality is infeasible (PSD forces
-    diag >= 0).  The solver must classify it INFEASIBLE and run the
-    certificate search gracefully within a bounded time budget (finding
-    the ray within the short CI budget is not required)."""
+    """Certificate path at realistic size: an mcp124-shaped max-cut
+    (side 124, 2% edge density, generated in the repo) with an appended
+    diag-entry = -1 equality is infeasible (PSD forces diag >= 0).  The
+    solver must classify it INFEASIBLE and run the certificate search
+    gracefully within a bounded time budget (finding the ray within the
+    short CI budget is not required)."""
 
     def test_mcp124_with_contradictory_row(self):
         import scipy.sparse as sp
         from proxsdp_tpu.problem import ConicProblem
         from proxsdp_tpu.solver import solve
 
-        problem, _ = sdplib.sdplib_problem(
-            f"{SDPLIB_DIR}/mcp124-1.dat-s", px.Options()
+        problem, _ = maxcut.maxcut_problem(
+            maxcut.random_graph_weights(1, 124, density=0.02)
         )
         A = sp.csr_matrix(problem.A)
         n = problem.n
@@ -168,11 +169,16 @@ class TestPerturbedSDPLIBInfeasible:
             objective_sense=problem.objective_sense,
         )
         # hybrid off: one compiled program for this one-off geometry, and
-        # the f32 race adds nothing on an infeasible instance
+        # the f32 race adds nothing on an infeasible instance.  The stall
+        # window is relaxed with the reference's own knobs (as the
+        # conformance suite's infeasibility tests do): at the defaults this
+        # instance declares only at the iteration limit, which a loaded
+        # CPU does not reach within the time limit
         r = solve(
             p2,
             px.Options(
-                max_iter=20000, time_limit=150, hybrid_precision=False
+                max_iter=20000, time_limit=150, hybrid_precision=False,
+                infeas_gap_tol=0.3, infeas_stable_gap_tol=1e-2,
             ),
         )
         # certified infeasibility when the ray search finishes in budget;
@@ -185,3 +191,58 @@ class TestPerturbedSDPLIBInfeasible:
         else:
             assert r.status in (2, 3), (r.status, r.status_string)
             assert "Suspected infeasible" in r.status_string, r.status_string
+
+
+class TestMaxcutCertificate:
+    """models.maxcut.maxcut_certificate: solver-independent bounds."""
+
+    W4 = np.array([[18., -5, -7, -6], [-5, 6, 0, -1],
+                   [-7, 0, 8, -1], [-6, -1, -1, 8]])
+
+    @pytest.fixture(scope="class")
+    def solved(self):
+        X, res = maxcut.solve_maxcut(
+            self.W4, px.Options(tol_gap=1e-4, tol_feasibility=1e-4)
+        )
+        return X, res
+
+    def test_brackets_readme_optimum(self, solved):
+        X, res = solved
+        L, U, gap = maxcut.maxcut_certificate(self.W4, X, res.dual_eq)
+        assert L <= 18.0 + 1e-9 <= U + 2e-9
+        assert 0.0 <= gap <= 1e-3
+
+    def test_sign_of_dual_does_not_matter(self, solved):
+        X, res = solved
+        a = maxcut.maxcut_certificate(self.W4, X, res.dual_eq)
+        b = maxcut.maxcut_certificate(self.W4, X, -res.dual_eq)
+        assert a == b
+
+    @pytest.mark.parametrize("scale", [0.05, 0.3])
+    def test_rejects_perturbed_x(self, solved, scale):
+        X, res = solved
+        rng = np.random.RandomState(0)
+        E = rng.randn(4, 4)
+        L, U, gap = maxcut.maxcut_certificate(
+            self.W4, X + scale * (E + E.T), res.dual_eq
+        )
+        assert L < 18.0 and gap > 1e-3
+
+    @pytest.mark.parametrize("kind", ["raise_one", "random"])
+    def test_rejects_perturbed_y(self, solved, kind):
+        X, res = solved
+        y = res.dual_eq.copy()
+        if kind == "raise_one":
+            y[0] += 0.05
+        else:
+            y += 0.1 * np.random.RandomState(2).randn(4)
+        L, U, gap = maxcut.maxcut_certificate(self.W4, X, y)
+        assert U >= 18.0 and gap > 1e-3
+
+    def test_zero_diagonal_stays_feasible(self):
+        # a PSD projection with a zero diagonal entry: the rescaled point
+        # sets it to 1 and stays a valid (feasible) lower bound
+        X = np.zeros((4, 4))
+        X[:2, :2] = 1.0
+        L, U, _ = maxcut.maxcut_certificate(self.W4, X, np.zeros(4))
+        assert np.isfinite(L) and L <= 18.0 <= U

@@ -2,7 +2,7 @@
 
 Launches 2 OS processes, each with 4 virtual CPU devices, joined via
 ``jax.distributed.initialize`` into one 8-device global mesh — the CPU
-stand-in for a 2-host TPU pod slice (SURVEY.md §4).  The batched PDHG
+stand-in for a 2-host device mesh (SURVEY.md §4).  The batched PDHG
 chunk runner executes over the global dp axis with cross-process
 collectives handled by the jax distributed runtime.
 """

@@ -390,7 +390,7 @@ class TestOptions:
         assert res.dual_feasible_user_tol
 
     def test_block_equilibration_mode(self):
-        """Cone-safe block Ruiz equilibration (TPU-native extension,
+        """Cone-safe block Ruiz equilibration (an extension,
         ROADMAP §3) preserves the solution; round-trip through the
         shared equilibration undo path."""
         opt, _ = build_maxcut_opt(block_equilibration=True)
@@ -483,7 +483,7 @@ class TestOptions:
         assert "(infeasible iterate" not in res.status_string
 
     def test_adaptive_restart_mode(self):
-        """restart="adaptive" (PDLP-style restart-to-average; TPU-native
+        """restart="adaptive" (PDLP-style restart-to-average; an
         extension, no reference counterpart) converges to the same
         answer with a short epoch so the restart logic actually fires."""
         opt, _ = build_maxcut_opt(
@@ -546,7 +546,7 @@ class TestInitState:
 
 class TestDataScaling:
     """PDLP-style objective/rhs normalization (Options.scale_objective /
-    scale_rhs; TPU-native extension).  The solver must return USER-unit
+    scale_rhs; an extension).  The solver must return USER-unit
     primal/dual/objective values, and badly-imbalanced instances must not
     be mis-declared (theta2 with ||c||=141 was declared infeasible, and
     randsdp with ||b||=806 needed 23k iterations, before these)."""

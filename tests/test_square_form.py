@@ -2,8 +2,8 @@
 
 The packed scaled triangle is the reference's CPU-era coordinate system
 (src/prox_operators.jl:1-31 rebuilds dense matrices from it every
-iteration); on TPU the tri<->square index maps lower to gathers measured
-at 52% of the whole PDHG iteration (mcp250-1 trace, round 4).  The
+iteration); on device the tri<->square index maps lower to gathers over
+the whole PSD segment every iteration.  The
 square layout folds the isometry into A/G/c once on the host
 (problem.to_square_form) — these tests pin the exact-equivalence
 guarantees that make that safe.
